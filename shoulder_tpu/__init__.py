@@ -1,9 +1,10 @@
-"""shoulder_tpu: a TPU-native 3D shoulder-anatomy inference framework.
+"""shoulder_tpu: a JAX 3D shoulder-anatomy inference framework.
 
 From-scratch JAX/XLA re-design of the capabilities of
 gregspangenberg/shoulder (see SURVEY.md): STL in, anatomic landmarks,
 patient coordinate systems, clinical metrics, osteotomy planning and
-plotting out — vmappable over bone batches and shardable over TPU meshes.
+plotting out — vmappable over bone batches and shardable over a mesh of
+GPUs.
 
 Public API mirrors the reference package surface
 (reference src/shoulder/__init__.py:1-5).
@@ -11,18 +12,19 @@ Public API mirrors the reference package surface
 
 import jax as _jax
 
-# Geometry correctness requires true f32 matmuls: the default matmul path
-# computes f32 x f32 at bfloat16 precision on both the XLA CPU and TPU MXU,
-# which costs ~0.05 mm on bone-scale coordinates.  The pipeline's matmuls
-# are tiny (Nx3 transforms, Nx2 projections), so full precision is free;
-# the UNet opts into bf16 explicitly via its parameter dtype.
+# Geometry correctness requires true f32 matmuls: an unpinned f32 x f32
+# matmul may run at reduced precision (bfloat16 passes on the XLA CPU,
+# TF32 on a GPU's tensor cores), which costs ~0.05 mm on bone-scale
+# coordinates.  The pipeline's matmuls are tiny (Nx3 transforms, Nx2
+# projections), so full precision is free; the UNet opts into bf16
+# explicitly in its convolutions.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent XLA compilation cache: the first process pays the ~40-80 s
-# full-resolution compile, every later process deserializes it.  The cache
-# dir is keyed per machine ISA so a shared home dir can never serve an
-# executable compiled for a different CPU (see
-# utils/platform.enable_compilation_cache; SHOULDER_TPU_CACHE=off opts out).
+# Persistent XLA compilation cache: the first process pays the
+# full-resolution compile, every later process deserializes it
+# (JAX_COMPILATION_CACHE_DIR if set, else <checkout>/.jax_cache/<machine>;
+# see utils/platform.enable_compilation_cache; SHOULDER_TPU_CACHE=off opts
+# out).
 from shoulder_tpu.utils.platform import (  # noqa: E402
     enable_compilation_cache as _enable_cache,
 )

@@ -50,11 +50,11 @@ class SliceSetConfig:
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     # --- slicing families (reference slice.py:209-276) -------------------
-    # group/slab default to 1/0 (per-plane windows): measured on v5e, the
-    # shared-slab fetch saves less than the slab-wide per-plane crossing
-    # test + compaction cumsum costs (batch-8 stage C 341 -> 348..366 ms
-    # across G=4/8, W=1536/2048) — the window fetch is contiguous and
-    # rides HBM bandwidth, so it was never the bottleneck
+    # group/slab default to 1/0 (per-plane windows): on the accelerator
+    # this was tuned for, the shared-slab fetch saved less than the
+    # slab-wide per-plane crossing test + compaction cumsum cost (the
+    # window fetch is contiguous).  On the H100: not measured
+    # (ROADMAP 3.2)
     full: SliceSetConfig = SliceSetConfig(zslice_num=200, interp_num=100,
                                           band=2048)
     # "must not change needed for anp cnn" (reference slice.py:236-237)
@@ -63,12 +63,12 @@ class PipelineConfig:
     distal: SliceSetConfig = SliceSetConfig(zslice_num=200, interp_num=500,
                                             band=2048)
     # compacted crossing-face slots per slicing plane: every per-plane
-    # stage (compaction row gather, SMEM walk, post-walk stats/resample)
-    # scales with it.  Worst per-plane crossing count measured across the
+    # stage (compaction row gather, loop labelling, stats/resample) scales
+    # with it.  Worst per-plane crossing count measured across the
     # reference fixtures is 330 (full stack, elbow region); 384 carries a
-    # 16% margin and cut the batch-8 bench 763 -> 693 ms vs 512.  A slice
-    # whose crossing count exceeds it degrades ONLY that slice and raises
-    # qc_slice_overflow — capped never means silent.
+    # 16% margin.  A slice whose crossing count exceeds it degrades ONLY
+    # that slice and raises qc_slice_overflow — capped never means
+    # silent.
     slice_compact_k: int = 384
 
     # fraction of the OBB z-extent covered by full/distal slicing
@@ -123,7 +123,7 @@ class PipelineConfig:
     groove_cand_cap: int = 64
 
     # --- anatomic neck -----------------------------------------------------
-    # articular segmenter: "unet" (default — Flax UNet proposal + sphere-
+    # articular segmenter: "unet" (default — UNet proposal + sphere-
     # consensus geometric refinement, the analog of the reference's
     # "unetcrf" CNN+CRF stage, anatomic_neck.py:62-85) or "sphere" (the
     # classical robust consensus alone).  The reference's own UNet weights
@@ -131,8 +131,8 @@ class PipelineConfig:
     # pipeline-extracted synthetic bones with generative labels plus
     # sphere-labelled real fixtures (tools/make_unet_corpus.py,
     # tools/train_unet.py).  On the 4 reference fixtures both modes agree
-    # within 0.12 deg / 0.002 mm (tools/eval_segmenter.py); with no
-    # checkpoint on disk the pipeline falls back to "sphere".
+    # within 0.12 deg / 0.002 mm (tools/eval_segmenter.py).  Missing UNet
+    # weights raise; "sphere" is only ever an explicit choice.
     segmenter: str = "unet"
     sphere_seg_iters: int = 12
     sphere_seg_tol_mm: float = 2.0

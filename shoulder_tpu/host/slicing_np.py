@@ -8,10 +8,10 @@ slice.py:26, mesh.py:95,159, surgical_neck.py:37).
 It has two jobs:
   1. ingest-time orientation decisions with data-dependent shapes
      (head-end detection mesh.py:89-117, ProxObb area scan mesh.py:150-190),
-  2. the oracle that the batched TPU slice kernel is tested against.
+  2. the oracle that the batched device slice kernel is tested against.
 
-The TPU kernel (shoulder_tpu/ops/slicing.py) implements the same geometry as
-dense fixed-shape ops.
+The device kernel (shoulder_tpu/ops/slicing.py) implements the same geometry
+as dense fixed-shape ops.
 """
 
 from __future__ import annotations

@@ -10,7 +10,7 @@ Covers the reference's MeshLoader/FullObb/ProxObb layer
     (mesh.py:133-192).
 
 Everything here is one-time per bone on the host; the result is a BoneSpec
-of fixed-shape arrays ready to batch and ship to the TPU pipeline.
+of fixed-shape arrays ready to batch and ship to the device pipeline.
 """
 
 from __future__ import annotations

@@ -311,3 +311,52 @@ def synthetic_humerus(
         label = np.concatenate([label_cap.reshape(-1), [False, True]])
         return verts, faces, label
     return verts, faces
+
+
+def exact_truth_cohorts(n: int, seed: int = 2026, arthritic: bool = True):
+    """Seeded healthy (and arthritic) cohorts of `n` ingested bones each.
+
+    One shared generator stream draws the healthy cohort first, then the
+    arthritic one (head flattening, osteophytes, surface noise), so a
+    draw's healthy half never depends on whether the arthritic half is
+    made.  Returns [(names, meshes, specs, truths)] per cohort, where a
+    mesh is its (vertices, faces) pair and a truth holds the generator's
+    length / head_radius / neck_shaft_deg / retroversion_deg / side.  Bones
+    that ingest refuses are redrawn.
+    """
+    from shoulder_tpu.io import ingest, stl
+
+    rng = np.random.default_rng(seed)
+    cohorts = []
+    for is_arth in (False, True) if arthritic else (False,):
+        names, meshes, specs, truths = [], [], [], []
+        i = 0
+        while len(specs) < n:
+            i += 1
+            p = dict(
+                length=float(rng.uniform(250, 310)),
+                head_radius=float(rng.uniform(20, 27)),
+                neck_shaft_deg=float(rng.uniform(125.0, 145.0)),
+                retroversion_deg=float(rng.uniform(15.0, 40.0)),
+                side="left" if rng.random() < 0.5 else "right",
+            )
+            deg = dict(
+                head_flattening=float(rng.uniform(0.12, 0.3)),
+                osteophyte_amp=float(rng.uniform(0.5, 2.5)),
+                surface_noise=float(rng.uniform(0.2, 0.6)),
+            ) if is_arth else {}
+            v, f = synthetic_humerus(rng_transform=rng, **p, **deg)
+            nbr, wt = stl.edge_face_adjacency(f)
+            name = f"{'a' if is_arth else 'h'}{i}"
+            try:
+                spec = ingest.spec_from_arrays(
+                    name, v.astype(np.float32), f.astype(np.int32), nbr, wt,
+                )
+            except ValueError:
+                continue
+            names.append(name)
+            meshes.append((v, f))
+            specs.append(spec)
+            truths.append(p)
+        cohorts.append((names, meshes, specs, truths))
+    return cohorts

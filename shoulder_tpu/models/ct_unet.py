@@ -1,62 +1,34 @@
 """3D UNet for CT bone segmentation (the config-5 volume path).
 
-Small NDHWC 3D UNet (bf16 activations on the MXU) that maps a normalized
-CT volume to per-voxel bone logits; marching tetrahedra extracts the
-surface from the logits at iso 0 (pipeline/ct.py).  Trained on synthetic
-CT volumes rendered from the procedural humerus (pipeline.ct.synth_ct_volume)
-— the classical HU threshold remains the robust default.
+Small NDHWC 3D UNet (bf16 convolutions, GroupNorm in float32) that maps a
+normalized CT volume to per-voxel bone logits; marching tetrahedra
+extracts the surface from the logits at iso 0 (pipeline/ct.py).  A pure
+function over the params dict layout of models/unet.py, with plain SAME
+padding on all three axes.  Trained on synthetic CT volumes rendered from
+the procedural humerus (pipeline.ct.synth_ct_volume) — the classical HU
+threshold remains the robust default.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 
-CKPT_DIR = Path(__file__).parent / "params" / "ct_unet"
+from shoulder_tpu.models import unet
+
+FEATURES = (8, 16, 32)
+PARAMS_PATH = Path(__file__).parent / "params" / "ct_unet.npz"
 
 HU_SCALE = 1000.0
 
 
-class ConvBlock3D(nn.Module):
-    features: int
-    dtype: jnp.dtype = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x):
-        for _ in range(2):
-            x = nn.Conv(self.features, (3, 3, 3), padding="SAME",
-                        dtype=self.dtype)(x)
-            x = nn.GroupNorm(num_groups=min(4, self.features),
-                             dtype=jnp.float32)(x)
-            x = nn.gelu(x)
-        return x
-
-
-class CTUNet(nn.Module):
-    features: Sequence[int] = (8, 16, 32)
-    dtype: jnp.dtype = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x):
-        x = x.astype(self.dtype)
-        skips = []
-        for f in self.features[:-1]:
-            x = ConvBlock3D(f, self.dtype)(x)
-            skips.append(x)
-            x = nn.avg_pool(x, (2, 2, 2), strides=(2, 2, 2))
-        x = ConvBlock3D(self.features[-1], self.dtype)(x)
-        for f, skip in zip(reversed(self.features[:-1]), reversed(skips)):
-            x = jnp.repeat(jnp.repeat(jnp.repeat(x, 2, 1), 2, 2), 2, 3)
-            x = nn.Conv(f, (2, 2, 2), padding="SAME", dtype=self.dtype)(x)
-            x = jnp.concatenate([x, skip.astype(x.dtype)], axis=-1)
-            x = ConvBlock3D(f, self.dtype)(x)
-        return nn.Conv(1, (1, 1, 1), dtype=jnp.float32)(x)
+def apply(params, x):
+    """(B, D, H, W, 1) normalized volume -> (B, D, H, W, 1) logits."""
+    return unet.forward(params, x, 4)
 
 
 def apply_volume(params, volume):
@@ -65,7 +37,7 @@ def apply_volume(params, volume):
     d, h, w = v.shape
     pad = [(0, (-s) % 4) for s in (d, h, w)]
     vp = jnp.pad(v, pad)
-    logits = CTUNet().apply(params, vp[None, ..., None])[0, ..., 0]
+    logits = apply(params, vp[None, ..., None])[0, ..., 0]
     return logits[:d, :h, :w]
 
 
@@ -74,16 +46,14 @@ def train(steps: int = 200, size=(64, 48, 48), lr: float = 1e-3,
     """Train on synthetic CT volumes (fresh volume per step)."""
     from shoulder_tpu.pipeline.ct import synth_ct_volume
 
-    model = CTUNet()
-    key = jax.random.PRNGKey(seed)
-    params = model.init(key, jnp.zeros((1, *size, 1)))
+    params = unet.init_params(jax.random.PRNGKey(seed), FEATURES, ndim=3)
     tx = optax.adamw(lr)
     opt_state = tx.init(params)
 
     @jax.jit
     def step(params, opt_state, vol, label):
         def loss_fn(p):
-            logits = model.apply(p, vol)
+            logits = apply(p, vol)
             return jnp.mean(
                 optax.sigmoid_binary_cross_entropy(logits, label)
             )
@@ -113,22 +83,10 @@ def train(steps: int = 200, size=(64, 48, 48), lr: float = 1e-3,
     return params, losses
 
 
-def save_params(params, path=CKPT_DIR) -> None:
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(Path(path).resolve(), params, force=True)
-    ckptr.wait_until_finished()
+def save_params(params, path=PARAMS_PATH) -> None:
+    unet.save_params(params, path)
 
 
-def load_params(path=CKPT_DIR):
-    import orbax.checkpoint as ocp
-
-    path = Path(path).resolve()
-    if not path.exists():
-        return None
-    template = jax.eval_shape(
-        lambda k: CTUNet().init(k, jnp.zeros((1, 16, 16, 16, 1))),
-        jax.random.PRNGKey(0),
-    )
-    return ocp.StandardCheckpointer().restore(path, template)
+def load_params(path=PARAMS_PATH):
+    """The shipped CT-UNet weights; raises if the file is missing."""
+    return unet.load_params(path)

@@ -1,6 +1,6 @@
 """Vectorized random-forest inference (gather-based, fixed depth).
 
-TPU-native replacement for the reference's onnxruntime TreeEnsembleClassifier
+JAX replacement for the reference's onnxruntime TreeEnsembleClassifier
 session (reference bicipital_groove.py:174-181).  Parameters are extracted
 offline from the shipped ONNX by tools/extract_onnx_rf.py into dense
 (tree, node) arrays; evaluation walks all trees for all samples in lockstep
@@ -70,7 +70,7 @@ def _subtree_table(params: ForestParams, levels: int):
     features then 2^l thresholds (BFS order: the node at within-subtree
     position p has children at 2p true / 2p+1 false), then the 2^levels
     level-`levels` descendant ids.  All small-int fields are exact as f32
-    values (never bitcast — see ops.slicing.SortedGeom on TPU denormals).
+    values (never bitcast — see ops.slicing.SortedGeom on denormals).
     Leaves self-loop (true=false=self), so a subtree that runs past a leaf
     keeps resolving to that leaf and overshooting max_depth is harmless.
     """
@@ -104,15 +104,13 @@ def predict_proba(params: ForestParams, x, levels: int = 3):
     go to the true child when x[feature] <= value.
 
     The lockstep descent is latency-bound (sequential rounds of (R, T)
-    gathers — v5e gather cost scales with ROWS fetched, not bytes per
-    row), so each round advances `levels` tree levels off ONE gather: the
-    node row packs its whole depth-`levels` subtree (tests + descendant
-    ids, `_subtree_table`), the within-subtree walk is gather-free
-    one-hot selects, and the round count drops from max_depth to
-    ceil(max_depth / levels) — 25 -> 9 serialized gathers at levels=3
-    (measured standalone at the pipeline's 18480x9 shape: 127 -> 75 ms
-    incl. dispatch floor; levels=4/5 widen the row past the win and
-    build 2-4x tables).  The sample value is
+    gathers), so each round advances `levels` tree levels off ONE gather:
+    the node row packs its whole depth-`levels` subtree (tests +
+    descendant ids, `_subtree_table`), the within-subtree walk is
+    gather-free one-hot selects, and the round count drops from max_depth
+    to ceil(max_depth / levels) — 25 -> 9 serialized gathers at levels=3
+    (levels=4/5 widen the row and build 2-4x tables).  The H100 time of
+    either formulation is not measured.  The sample value is
     selected by a one-hot contraction over the 9 features.  Bit-exact vs
     the level-1 descent: identical comparisons, identical f32 arithmetic.
     """

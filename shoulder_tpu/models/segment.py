@@ -5,7 +5,7 @@ UNet-CRF over a polar radius image (reference anatomic_neck.py:62-85).  The
 UNet weights are absent from the reference snapshot (SURVEY.md §2.2), so
 this module provides:
 
-  * `sphere_segment` — a classical, TPU-friendly robust-sphere segmenter:
+  * `sphere_segment` — a classical, dense robust-sphere segmenter:
     the humeral head is near-spherical (the same assumption behind the
     reference's radius-of-curvature metric, bone_props.py:118-148), so the
     articular surface is the set of surface points within a tolerance of a
@@ -27,12 +27,11 @@ import jax.numpy as jnp
 def _longest_cyclic_run_per_row(mask):
     """Keep only the longest contiguous cyclic run of True in each row.
 
-    Gather-free formulation (the one-gather-one-scatter-per-row original
-    cost ~78 ms per call at batch 8 on v5e — 2x of it dominated the whole
-    articular stage): each position's run is described by the nearest
-    False on either side, both computed with directional cumulative
-    extrema — pure elementwise math plus log-depth scans on the lane
-    axis.  The winning run maximizes (length, -cyclic start order), the
+    Gather-free formulation (the original rolled each row to its first
+    False and scatter-counted run ids): each position's run is described
+    by the nearest False on either side, both computed with directional
+    cumulative extrema — pure elementwise math plus log-depth scans along
+    the row.  The winning run maximizes (length, -cyclic start order), the
     same run the rolled run-id/argmax formulation selected: ties break
     toward the run encountered first when scanning from the first False
     (cyclically), and a wrapped run starts at its tail segment's start.

@@ -1,4 +1,4 @@
-"""TPU-native isosurface extraction: marching tetrahedra (Kuhn lattice).
+"""Dense-JAX isosurface extraction: marching tetrahedra (Kuhn lattice).
 
 The CT end-to-end path (BASELINE.json config 5) needs volume -> surface
 mesh on device.  Classic marching cubes needs a 256-case triangle table;

@@ -2,7 +2,7 @@
 
 Replaces the reference's rtree-backed trimesh ray engine
 (reference anatomic_neck.py:184-224).  A handful of rays against ~32k
-triangles is a trivially dense VPU workload; no spatial index needed
+triangles is a trivially dense elementwise workload; no spatial index needed
 (SURVEY.md §2.3).
 """
 
@@ -29,8 +29,8 @@ def first_hit(verts, faces, origin, direction, face_valid=None):
 def first_hits(verts, faces, origins, directions, face_valid=None):
     """`first_hit` for a batch of rays against ONE triangle soup.
 
-    The triangle-vertex gather (3 x F rows — the expensive part on TPU;
-    the per-ray math is dense VPU work) happens once, not once per ray.
+    The triangle-vertex gather (3 x F rows — the expensive part; the
+    per-ray math is dense elementwise work) happens once, not once per ray.
     Returns (points (R,3), ts (R,), hits (R,)).
     """
     v0 = verts[faces[:, 0]]

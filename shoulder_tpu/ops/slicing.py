@@ -735,7 +735,7 @@ def _post_walk(order_s, start_flags, n_s, start_s, end_s, orig_s,
 )
 def slice_stack(
     verts, faces, neighbors, zs, interp_num: int, max_chain: int = 2048,
-    chunk: int = 50, band: int = 6144, use_walk: bool | None = None,
+    chunk: int = 50, band: int = 6144, use_walk: bool = False,
     sg: SortedGeom | None = None, group: int = 1, slab: int = 0,
     compact_k: int = 512,
 ) -> SliceStack:
@@ -753,8 +753,6 @@ def slice_stack(
     neighbors)`: the z-sort (a full-face-set argsort) depends only on the
     mesh, so callers slicing several stacks of one bone share it.
     """
-    if use_walk is None:
-        use_walk = jax.default_backend() == "tpu"
     band = min(band, faces.shape[0])
     if sg is None:
         sg = sorted_geom(verts, faces, neighbors)
@@ -762,7 +760,7 @@ def slice_stack(
     los, starts, win_over = _window_starts(sg, zs, band)
 
     if use_walk:
-        from shoulder_tpu.ops import pallas_chain
+        from shoulder_tpu.ops import cuda_walk
 
         k = min(compact_k, band)
         S = zs.shape[0]
@@ -827,10 +825,7 @@ def slice_stack(
                     prep, (zs, los, starts, win_over), batch_size=chunk
                 )
             )
-        interpret = jax.default_backend() != "tpu"
-        order, nvis, run_starts = pallas_chain.chain_walk_marked(
-            succ, crossed, interpret=interpret
-        )
+        order, nvis, run_starts = cuda_walk.chain_walk_marked(succ, crossed)
         contours, centroids, areas, total_areas = jax.vmap(
             functools.partial(_post_walk, interp_num=interp_num)
         )(order, run_starts, nvis[:, 0], start, end, orig)

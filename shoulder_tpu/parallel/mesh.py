@@ -47,7 +47,7 @@ def sharded_landmark_fn(
     """jit-compiled batched pipeline with bone-sharded in/out specs.
 
     With `wire=True` the input is a pipeline.batch.WireBones batch (the
-    compact uint16 tunnel format); decode happens per-shard on-device.
+    compact uint16 wire format); decode happens per-shard on-device.
     """
     sharding = NamedSharding(mesh, P(axis))
     replicated = NamedSharding(mesh, P())

@@ -105,8 +105,6 @@ def segment_volume(volume, method: str = "threshold", iso_hu: float = 300.0):
         from shoulder_tpu.models import ct_unet
 
         params = ct_unet.load_params()
-        if params is None:
-            raise RuntimeError("no trained ct_unet checkpoint; use threshold")
         logits = ct_unet.apply_volume(params, volume)
         return np.asarray(logits, np.float32), 0.0
     raise ValueError(method)

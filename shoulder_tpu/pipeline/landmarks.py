@@ -1,6 +1,6 @@
 """The staged landmark pipeline: one jitted function per bone, vmappable.
 
-This is the TPU-native re-architecture of the reference's lazy object web
+This is the accelerator re-architecture of the reference's lazy object web
 (SURVEY.md §7 design stance): a pure function over fixed-shape tensors that
 computes every landmark and metric in one traced program.  The stateful
 `Humerus` facade (shoulder_tpu.bone) reproduces the reference API on top.
@@ -399,7 +399,7 @@ def _anatomic_neck(prox: slicing.SliceStack, bone: BoneTensors, bg_theta,
                    cfg: PipelineConfig, seg_params=None, out_n: int = 2048):
     image, pts = _anp_image_points(prox, bg_theta, cfg)
 
-    if cfg.segmenter == "unet" and seg_params is not None:
+    if cfg.segmenter == "unet":
         # UNet over the normalized polar image (the reference's interface,
         # anatomic_neck.py:62-85), then geometric-consistency refinement:
         # the CNN mask seeds the robust-sphere consensus instead of the
@@ -588,11 +588,11 @@ def compute_landmarks(
     seg_params=None,
 ) -> Landmarks:
     if cfg.segmenter == "unet" and seg_params is None:
-        # Resolve the shipped checkpoint at trace time; the weights embed
-        # as program constants, so every caller (facade, vmapped batch,
-        # sharded mesh) inherits them without threading an extra argument.
-        # Loads once per process (models.unet.load_default_params cache);
-        # still-None (no checkpoint) falls through to the sphere segmenter.
+        # Resolve the shipped weights at trace time; they embed as program
+        # constants, so every caller (facade, vmapped batch, sharded mesh)
+        # inherits them without threading an extra argument.  Loads once
+        # per process (models.unet.load_default_params cache) and raises
+        # if the weight file is missing.
         from shoulder_tpu.models import unet as unet_mod
 
         seg_params = unet_mod.load_default_params()

@@ -44,9 +44,9 @@ def eigh3(a):
 
     Returns (vals(3,), vecs(3,3)) in ascending order, the same convention
     as jnp.linalg.eigh (eigenvector signs are arbitrary in both).  The
-    trigonometric closed form replaces eigh's iterative decomposition,
-    which costs tens of milliseconds per call on TPU — the line/plane fits
-    run once per landmark stage and were dominated by it.
+    trigonometric closed form replaces eigh's iterative decomposition
+    (a solver call per fit) with a few fused elementwise ops; the
+    line/plane fits run once per landmark stage.
     """
     a = jnp.asarray(a)
     q = jnp.trace(a) / 3.0
@@ -156,7 +156,8 @@ def _eig3(m):
     pairs come back with their real part and garbage eigenvectors — callers
     must select the relevant real eigenpair themselves (fit_ellipse selects
     by the 4ac-b^2 > 0 constraint, which only the real root satisfies).
-    Exists because jnp.linalg.eig has no TPU lowering.
+    Exists because jnp.linalg.eig has no lowering on every backend (on a
+    GPU it needs MAGMA), and a closed form stays inside the fused program.
     """
     m = jnp.asarray(m)
     tr = jnp.trace(m)
@@ -170,7 +171,7 @@ def _eig3(m):
     # characteristic poly: l^3 - tr l^2 + m2 l - det; depress with l = t+tr/3
     p = m2 - tr**2 / 3.0
     q = -det + tr * m2 / 3.0 - 2.0 * tr**3 / 27.0
-    # real-only Cardano (TPU has no reliable complex lowering):
+    # real-only Cardano (no complex arithmetic in the program):
     disc = q**2 / 4.0 + p**3 / 27.0
     # disc > 0: a single real root via real cube roots
     sq = jnp.sqrt(jnp.maximum(disc, 0.0))
@@ -228,8 +229,8 @@ def fit_ellipse(pts2d, w=None):
     m = s1 + s2 @ t
     c1inv = jnp.array([[0.0, 0.0, 0.5], [0.0, -1.0, 0.0], [0.5, 0.0, 0.0]])
     m = c1inv @ m
-    # jnp.linalg.eig only lowers on CPU; use the closed-form 3x3 eigensolver
-    # so the fit compiles on TPU
+    # closed-form 3x3 eigensolver: jnp.linalg.eig does not lower on every
+    # backend
     vals, vecs = _eig3(m)
     # pick eigenvector with 4ac - b^2 > 0 (the ellipse-defining pair; it is
     # unique and real per Halir & Flusser)

@@ -49,45 +49,14 @@ BOUNDS = {
 
 @pytest.fixture(scope="module", params=["healthy", "arthritic"])
 def cohort(request):
-    from shoulder_tpu.io import ingest, stl
-    from shoulder_tpu.io.testdata import synthetic_humerus
+    from shoulder_tpu.io.testdata import exact_truth_cohorts
     from shoulder_tpu.pipeline import batch as B
 
     arthritic = request.param == "arthritic"
     # same deterministic draw as tools/eval_accuracy.py: healthy first,
     # arthritic second, one shared generator stream
-    rng = np.random.default_rng(2026)
-    cohorts = []
-    for is_arth in (False, True):
-        specs, truth = [], []
-        i = 0
-        while len(specs) < N_PER_COHORT:
-            i += 1
-            p = dict(
-                length=float(rng.uniform(250, 310)),
-                head_radius=float(rng.uniform(20, 27)),
-                neck_shaft_deg=float(rng.uniform(125.0, 145.0)),
-                retroversion_deg=float(rng.uniform(15.0, 40.0)),
-                side="left" if rng.random() < 0.5 else "right",
-            )
-            deg = dict(
-                head_flattening=float(rng.uniform(0.12, 0.3)),
-                osteophyte_amp=float(rng.uniform(0.5, 2.5)),
-                surface_noise=float(rng.uniform(0.2, 0.6)),
-            ) if is_arth else {}
-            v, f = synthetic_humerus(rng_transform=rng, **p, **deg)
-            nbr, wt = stl.edge_face_adjacency(f)
-            try:
-                spec = ingest.spec_from_arrays(
-                    f"b{i}", v.astype(np.float32), f.astype(np.int32),
-                    nbr, wt,
-                )
-            except ValueError:
-                continue
-            specs.append(spec)
-            truth.append(p)
-        cohorts.append((specs, truth))
-    specs, truth = cohorts[1] if arthritic else cohorts[0]
+    cohorts = exact_truth_cohorts(N_PER_COHORT, seed=2026)
+    _, _, specs, truth = cohorts[1] if arthritic else cohorts[0]
     lm = B.landmarks_to_numpy(
         B.compute_landmarks_batch(B.stack_bones(specs), chunk=150)
     )

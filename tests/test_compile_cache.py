@@ -1,10 +1,10 @@
-"""Unit tests for the persistent-compile-cache keying (utils/platform).
+"""Unit tests for the persistent compile cache (utils/platform).
 
-Round-4 shipped a home-dir cache shared across machine types, which can
-deserialize XLA:CPU AOT executables compiled for a different ISA
-(SIGILL class).  The cache dir is now keyed by the host CPU's feature
-set; these tests lock the key's properties without touching the real
-cache.
+`JAX_COMPILATION_CACHE_DIR`, when set, is JAX's own and nothing is set
+in code; otherwise the cache lives at a fixed, gitignored path inside
+the checkout, keyed by the host CPU's feature set (a cache shared across
+machine types can deserialize XLA:CPU executables compiled for another
+ISA, SIGILL class).
 """
 
 import os
@@ -31,14 +31,56 @@ def test_cache_dir_is_machine_keyed_and_env_gated(tmp_path, monkeypatch):
     # cache writes for the rest of the suite
     old = jax.config.jax_compilation_cache_dir
     try:
-        monkeypatch.setenv("SHOULDER_TPU_CACHE", str(tmp_path))
+        monkeypatch.delenv("SHOULDER_TPU_CACHE", raising=False)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         d = plat.enable_compilation_cache()
         assert d is not None
-        assert d.startswith(str(tmp_path))
         assert d.endswith(plat._machine_key())
         assert os.path.isdir(d)
 
         monkeypatch.setenv("SHOULDER_TPU_CACHE", "off")
         assert plat.enable_compilation_cache() is None
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert plat.enable_compilation_cache() is None
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_env_cache_dir_is_honoured_and_nothing_set(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR set: JAX reads it itself; no config is
+    written in code."""
+    import jax
+
+    from shoulder_tpu.utils import platform as plat
+
+    old = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("SHOULDER_TPU_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    try:
+        assert plat.enable_compilation_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == old
+    finally:
+        jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_default_cache_dir_is_fixed_inside_checkout(monkeypatch):
+    """Unset: a fixed, machine-keyed, gitignored path in the checkout."""
+    from pathlib import Path
+
+    import jax
+
+    from shoulder_tpu.utils import platform as plat
+
+    repo = Path(__file__).resolve().parents[1]
+    assert plat.CACHE_ROOT == repo / ".jax_cache"
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().splitlines()
+    old = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("SHOULDER_TPU_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        d1 = plat.enable_compilation_cache()
+        d2 = plat.enable_compilation_cache()
+        assert d1 == d2 == str(repo / ".jax_cache" / plat._machine_key())
+        assert jax.config.jax_compilation_cache_dir == d1
     finally:
         jax.config.update("jax_compilation_cache_dir", old)

@@ -4,7 +4,7 @@ Locks the round-1 validated outputs (anatomically verified: sides correct,
 flip-invariant, clinically plausible — tests/test_reference_fixtures.py) so
 later kernel/pipeline refactors can't silently shift results.  Tolerances
 follow BASELINE.json: 0.5 mm points / 0.5 deg angles, with a little slack
-for backend (CPU vs TPU) float differences.
+for backend (CPU vs GPU) float differences.
 
 Slow (full resolution); gated with RUN_SLOW=1.
 """

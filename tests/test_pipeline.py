@@ -77,7 +77,7 @@ def test_batch_consistency_vs_single(synth_spec, tiny_cfg):
 
 
 def test_wire_format_matches_direct(synth_spec, tiny_cfg, landmarks):
-    """The uint16 tunnel wire format is a lossless re-encoding: decode
+    """The uint16 wire format is a lossless re-encoding: decode
     reproduces BoneTensors exactly (incl. the -1 neighbor sentinel on
     padding rows) and the wire pipeline reproduces the direct pipeline."""
     import jax
@@ -257,16 +257,12 @@ def test_unet_segmenter_plumbing(synth_spec, tiny_cfg):
     import dataclasses
 
     import jax
-    import jax.numpy as jnp
 
-    from shoulder_tpu.models import forest
-    from shoulder_tpu.models.unet import UNet
+    from shoulder_tpu.models import forest, unet
     from shoulder_tpu.pipeline.landmarks import compute_landmarks
 
     cfg = dataclasses.replace(tiny_cfg, segmenter="unet")
-    params = UNet().init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 1))
-    )
+    params = unet.init_params(jax.random.PRNGKey(0))
     bt = B.bone_tensors(synth_spec)
     lm = compute_landmarks(
         bt, forest.load_params(), proximal=False, cfg=cfg, chunk=16,

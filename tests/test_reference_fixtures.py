@@ -132,7 +132,7 @@ def test_sharded_fullres_unet_equals_unsharded():
     from shoulder_tpu.pipeline import batch as B
 
     assert DEFAULT_CONFIG.segmenter == "unet"
-    assert unet.load_default_params() is not None
+    assert unet.load_default_params()
     n = len(jax.devices())
     assert n == 8
     spec = ingest.load_bone(reference_stl("humerus_left.stl"))

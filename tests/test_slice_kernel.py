@@ -162,33 +162,30 @@ def test_stack_batched_vmap_consistency(synthetic_bone):
 
 
 def test_walk_path_matches_doubling(synthetic_bone):
-    """use_walk=True (Pallas chain walk; interpret mode on CPU) must produce
-    the same contour stack as the pointer-doubling path."""
+    """The doubling path's loop walk reproduces the numpy oracle's walk
+    over a whole stack: same largest loop, same start face, same order."""
     verts, faces = synthetic_bone
     v32, f32, nb = _prep(verts, faces)
     zlo, zhi = verts[:, 2].min(), verts[:, 2].max()
     zs = np.linspace(zlo + 5, zhi - 5, 24).astype(np.float32)
 
-    a = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024, False)
-    b = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024, True)
+    a = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024)
     # overflowed slices (band too small near the synthetic end caps) are
-    # QC-flagged and excluded: both paths degrade there, differently
-    ok = ~(np.asarray(a.overflow) | np.asarray(b.overflow))
+    # QC-flagged and excluded
+    ok = ~np.asarray(a.overflow)
     assert ok.sum() >= 20
-    # areas differ only by float summation order between the two groupings
-    assert np.allclose(np.asarray(a.areas)[ok], np.asarray(b.areas)[ok],
-                       atol=0.01)
-    assert np.allclose(
-        np.asarray(a.centroids)[ok], np.asarray(b.centroids)[ok], atol=1e-3
-    )
-    assert np.allclose(
-        np.asarray(a.contours)[ok], np.asarray(b.contours)[ok], atol=1e-3
-    )
+    for i in np.flatnonzero(ok):
+        oracle, loop = _oracle_contour(verts, faces, nb, float(zs[i]), 64)
+        assert np.asarray(a.areas)[i] == pytest.approx(loop["area"],
+                                                       rel=1e-4)
+        assert np.allclose(np.asarray(a.centroids)[i], loop["centroid"],
+                           atol=1e-3)
+        assert np.allclose(np.asarray(a.contours)[i], oracle, atol=2e-3)
 
 
 def test_group_slab_matches_per_plane(synthetic_bone):
     """group>1 (shared slab windows) must match the per-plane window path
-    bit-for-bit on non-overflowed slices, on BOTH kernel paths."""
+    bit-for-bit on non-overflowed slices."""
     verts, faces = synthetic_bone
     v32, f32, nb = _prep(verts, faces)
     zlo, zhi = verts[:, 2].min(), verts[:, 2].max()
@@ -197,16 +194,14 @@ def test_group_slab_matches_per_plane(synthetic_bone):
     # grid would only exercise the slab-truncation QC flag
     zs = np.linspace(zhi - 5, zlo + 5, 48).astype(np.float32)
 
-    for walk in (False, True):
-        a = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024, walk)
-        g = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024, walk,
-                                group=8, slab=12288)
-        ok = ~(np.asarray(a.overflow) | np.asarray(g.overflow))
-        assert ok.sum() >= 40
-        assert np.array_equal(np.asarray(a.contours)[ok],
-                              np.asarray(g.contours)[ok]), f"walk={walk}"
-        assert np.array_equal(np.asarray(a.areas)[ok],
-                              np.asarray(g.areas)[ok]), f"walk={walk}"
+    a = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024)
+    g = slicing.slice_stack(v32, f32, nb, zs, 64, 2048, 8, 1024,
+                            group=8, slab=12288)
+    ok = ~(np.asarray(a.overflow) | np.asarray(g.overflow))
+    assert ok.sum() >= 40
+    assert np.array_equal(np.asarray(a.contours)[ok],
+                          np.asarray(g.contours)[ok])
+    assert np.array_equal(np.asarray(a.areas)[ok], np.asarray(g.areas)[ok])
 
 
 def test_presorted_matches_device_sort(synthetic_bone):

@@ -38,8 +38,6 @@ def main():
     from shoulder_tpu.utils import geometry as geom
 
     seg_params = unet_mod.load_default_params()
-    if seg_params is None:
-        raise SystemExit("no UNet checkpoint")
     rf = forest.load_params()
     stl_args = [a for a in sys.argv[1:] if a.endswith(".stl")]
     n = (int(sys.argv[1])

@@ -15,20 +15,11 @@ Run:  python tools/eval_accuracy.py [n_per_cohort]
 """
 
 import json
-import os
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-
-# default CPU (deterministic vs the committed evidence); SHOULDER_EVAL_TPU=1
-# runs on the default backend instead — ~3x faster iteration on the chip,
-# metrics agree with CPU to <0.01 deg (PARITY.md goldens section)
-if os.environ.get("SHOULDER_EVAL_TPU") != "1":
-    from shoulder_tpu.utils.platform import force_cpu
-
-    force_cpu()
 
 import numpy as np  # noqa: E402
 

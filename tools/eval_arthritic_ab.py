@@ -30,9 +30,7 @@ def main():
     from shoulder_tpu.models import unet
     from shoulder_tpu.pipeline import batch as B
 
-    if unet.load_default_params() is None:
-        print("no UNet checkpoint; train one first")
-        return 1
+    unet.load_default_params()  # raises if the weights are missing
 
     rng = np.random.default_rng(42)
     specs, truth = [], []

@@ -35,9 +35,7 @@ def main():
     from shoulder_tpu.io import ingest
     from shoulder_tpu.models import unet
 
-    if unet.load_default_params() is None:
-        print("no UNet checkpoint available; train one first")
-        return 1
+    unet.load_default_params()  # raises if the weights are missing
 
     specs = [ingest.load_bone(p) for p in paths]
     cfg_s = dataclasses.replace(DEFAULT_CONFIG, segmenter="sphere")

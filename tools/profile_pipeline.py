@@ -1,7 +1,7 @@
 """Per-stage wall-time profile of the landmark pipeline on the current device.
 
 The observability tool promised by SURVEY.md §5 (the reference has none):
-honest synchronous timing per stage with the D2H channel pre-warmed.
+synchronous timing per stage (each ends in block_until_ready).
 
 Run:  python tools/profile_pipeline.py [stl_path]
 """
@@ -35,11 +35,6 @@ def main():
     spec = ingest.load_bone(stl_path)
     bt = jax.block_until_ready(jax.device_put(B.bone_tensors(spec)))
     rf = jax.block_until_ready(jax.device_put(forest.load_params()))
-
-    # warm the D2H channel so timings are honest (see bench.py)
-    t0 = time.time()
-    _ = float(np.asarray(jax.jit(lambda b: jnp.sum(b.z_length))(bt)))
-    print(f"channel warm-up fetch {time.time() - t0:.1f}s")
 
     def timeit(name, fn, *args):
         f = jax.jit(fn)

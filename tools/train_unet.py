@@ -29,11 +29,11 @@ def main():
                     help="oversampling factor for corpora named *real*")
     ap.add_argument("--frac-procedural", type=float, default=0.25)
     ap.add_argument("--resume", action="store_true",
-                    help="fine-tune from the shipped checkpoint")
+                    help="fine-tune from the shipped weights")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    from shoulder_tpu.models import unet_train
+    from shoulder_tpu.models import unet, unet_train
 
     images, masks = [], []
     for path in args.corpora:
@@ -49,13 +49,13 @@ def main():
     masks = np.concatenate(masks)
     print(f"[data] total {images.shape[0]} pairs")
 
-    init = unet_train.load_params() if args.resume else None
+    init = unet.load_params(unet.PARAMS_PATH) if args.resume else None
     params, losses = unet_train.train_mixture(
         images, masks, steps=args.steps, batch=args.batch, lr=args.lr,
         frac_procedural=args.frac_procedural, init_params=init,
     )
-    out = args.out or unet_train.CKPT_DIR
-    unet_train.save_params(params, out)
+    out = args.out or unet.PARAMS_PATH
+    unet.save_params(params, out)
     print(f"[unet] saved {out} (final loss {losses[-1]:.4f})")
 
 
