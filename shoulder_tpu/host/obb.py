@@ -55,8 +55,8 @@ def _native_search(hp: np.ndarray, normals: np.ndarray, hull=None):
     precision.  When the ConvexHull object is provided, the per-candidate
     2D hull is computed as the polytope SILHOUETTE (front/back facet
     classification over the hull adjacency) instead of a fresh point-set
-    hull — measured ~334 ms -> ~60 ms per humerus, and ingest throughput
-    is what gates cohort streaming (PERF.md round 3).
+    hull — measured ~334 ms -> ~60 ms per humerus on one host core;
+    ingest throughput can gate cohort streaming (ROADMAP 1.7).
     """
     import ctypes
 

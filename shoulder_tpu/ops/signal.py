@@ -13,7 +13,7 @@ find_peaks follows scipy's exact definitions: prominence bases via
 previous/next strictly-greater element, tie-broken toward the peak; widths
 at rel_height=0.5 with linear interpolation of the crossing points.  The
 O(N^2) masked formulation trades FLOPs for full vectorization — N=512 per
-contour, vmapped over slices and bones on the VPU.
+contour, vmapped over slices and bones.
 """
 
 from __future__ import annotations
@@ -26,8 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 
 # monotone-source row selection implementation (see fill_from_scatter):
-# "gather" measured faster at pipeline shapes on v5e; "scatter" kept for
-# re-measurement via SHOULDER_FILL_IMPL.
+# "gather" measured faster at pipeline shapes on the accelerator this was
+# first tuned for; "scatter" kept for re-measurement via SHOULDER_FILL_IMPL
+# (H100: not measured).
 _FILL_IMPL = os.environ.get("SHOULDER_FILL_IMPL", "gather")
 
 _BIG = jnp.inf
@@ -123,9 +124,9 @@ def _peaks_core_rq(x, height: float, prominence: float, width: float):
     Previous/next strictly-greater elements by binary descent on a
     range-max table, interval minima/bases by O(1) two-block range-min
     queries with scipy's tie directions, and the width crossing points by
-    threshold descent on the range-min table.  Wins on CPU where the
-    O(n^2) masks blow the cache; loses on TPU where the dependent gather
-    rounds serialize against the VPU's appetite for wide dense ops.
+    threshold descent on the range-min table.  `find_peaks(method="rq")`;
+    on the H100 it ties the dense core (PERF.md), and it is the faster
+    core on a CPU, where the O(n^2) masks blow the cache.
     """
     n = x.shape[0]
     levels = max(1, int(np.ceil(np.log2(n))))
@@ -235,9 +236,9 @@ def _peaks_core_dense_cand(x, height: float, prominence: float, width: float,
     returned in CANDIDATE space: (cand, cvalid, ok_c, prom_c, widths_c,
     wh_c), candidates in ascending position order.
 
-    One big fused elementwise program — the fastest formulation on TPU,
-    where the VPU eats wide dense ops and the range-query variant's
-    serialized gather rounds lose by ~12x at n=512.  Only local maxima
+    One big fused elementwise program, the default core (on the H100 it
+    measured level with or slightly ahead of the range-query core at the
+    groove stage's shapes, PERF.md).  Only local maxima
     participate as mask rows: they are compacted to candidate slots
     first, so the masks are (C, n) instead of (n, n).  Strict local
     maxima are never adjacent (and the +inf edge pads exclude the ends),
@@ -354,8 +355,7 @@ def _peaks_core_dense(x, height: float, prominence: float, width: float,
     kept for the scipy-oracle tests and any full-length callers; the hot
     path (find_peaks, method='dense') packs straight from candidate space
     and skips these four scatters (measured as most of the core's cost:
-    the masks are VPU-dense, the scatters pay the TPU scatter issue
-    rate)."""
+    the masks are dense elementwise work, the scatters are not)."""
     n = x.shape[0]
     cand, cvalid, ok_c, prom_c, widths_c, wh_c, _ovf = _peaks_core_dense_cand(
         x, height, prominence, width, cand_cap
@@ -372,7 +372,7 @@ def _peaks_core_dense(x, height: float, prominence: float, width: float,
     jax.jit, static_argnames=("max_peaks", "method", "cand_cap")
 )
 def find_peaks(x, height: float, prominence: float, width: float,
-               max_peaks: int = 16, method: str | None = None,
+               max_peaks: int = 16, method: str = "dense",
                cand_cap: int | None = None):
     """scipy.signal.find_peaks(height=, prominence=, width=) equivalent.
 
@@ -381,8 +381,8 @@ def find_peaks(x, height: float, prominence: float, width: float,
       idx, prominences, widths, width_heights, valid, n_peaks, overflow.
 
     Two cores with identical outputs (both scipy-oracle tested): `dense`
-    (O(n^2) fused masks, fastest on TPU) and `rq` (O(n log n) sparse-table
-    range queries, fastest on CPU).  The default picks by backend.
+    (O(n^2) fused masks over compacted candidates, the default) and `rq`
+    (O(n log n) sparse-table range queries).
 
     `cand_cap` (dense core only) bounds the candidate local-maxima slots;
     the default ``n // 2 + 1`` is exact on any input.  A smaller cap cuts
@@ -392,8 +392,8 @@ def find_peaks(x, height: float, prominence: float, width: float,
     surface it (the pipeline routes it into a QC flag).
     """
     x = jnp.asarray(x)
-    if method is None:
-        method = "dense" if jax.default_backend() == "tpu" else "rq"
+    if method not in ("dense", "rq"):
+        raise ValueError(f"find_peaks method {method!r}")
 
     if method == "dense":
         # pack straight from candidate space: candidates are in ascending
@@ -498,8 +498,7 @@ def rbf_changepoint_1bkp(signal, valid=None, min_size: int = 2):
     #             = padded[e,e] - padded[s,e] - padded[e,s] + padded[s,s];
     # evaluated for all split points at once from the prefix table's
     # diagonal plus its 0th and (traced) nth row/column — pure vector
-    # slices instead of ~8 scalar gathers per split under the vmap (the
-    # scalar-gather chain made this 58-point changepoint cost 25 ms/batch-8)
+    # slices instead of ~8 scalar gathers per split under the vmap
     ts = jnp.arange(n_total)
     len1 = ts.astype(jnp.float32)
     len2 = (n - ts).astype(jnp.float32)
@@ -525,12 +524,11 @@ def fill_from_scatter(dest, rows, m, init_row, dense=False):
     empty — monotone-source row selection.
 
     `dense=True` computes the rank as one dense (m, n) masked max-reduce
-    on the VPU — `rank[j] = max({k : 0 <= dest[k] <= j} | {-1})` — which
+    — `rank[j] = max({k : 0 <= dest[k] <= j} | {-1})` — which
     is EXACTLY the scatter-max + cummax semantics for ARBITRARY `dest`
     (drops negatives and entries >= m like the scatter's drop mode).
-    Same dense-for-scatter trade as ops.slicing._compact_slice's order
-    (scatters issue ~8x slower than compares at these shapes); the m-row
-    payload gather is unchanged.  An earlier count-based variant
+    Same dense-for-scatter trade as ops.slicing._compact_slice's order;
+    the m-row payload gather is unchanged.  An earlier count-based variant
     (`#{k : dest[k] <= j} - 1`) required `dest` non-decreasing — a
     precondition interp_ascending's call site silently violates on
     non-convex contours (theta in walk order is locally non-monotone),
@@ -547,14 +545,11 @@ def fill_from_scatter(dest, rows, m, init_row, dense=False):
       entries >= m dropped): within a tie group only the LAST k can win,
       so winners write unique slots.
 
-    The scatter variant looked like a roofline win on paper (it removes
-    the m-row gather, the usual currency) but measured SLOWER on v5e at
-    pipeline shapes: its scan carries the whole (m, C) row payload
-    through log2(m) full-width select rounds (the device trace showed
-    the C=6 resample fill costing 152 ms scatter + ~200 ms scan at
-    batch 8 vs ~270 ms for the whole gather formulation), while the
-    gather variant moves each row ONCE.  Scatter+scan only pays when C
-    is small; both kept for re-measurement (PERF.md round-3 non-lessons).
+    The scatter variant removes the m-row gather but carries the whole
+    (m, C) row payload through log2(m) full-width select rounds, while
+    the gather variant moves each row ONCE; on the accelerator this was
+    first tuned for, the gather variant won.  Both kept for
+    re-measurement on the H100 (not measured).
     """
     if dense:
         n = dest.shape[0]
@@ -613,8 +608,7 @@ def interp_ascending(x, xp, fp, grid=None):
     `grid=(x0, step)`: the caller declares that `x[j] == x0 + j * step`
     BIT-EXACTLY (i.e. it built x with that very expression, not linspace).
     The +-1 correction then computes the grid values arithmetically and
-    the (n, 2) pair_x row gather disappears — the polar-image build's
-    per-knot gather in the device trace.
+    the (n, 2) pair_x row gather disappears.
     """
     x = jnp.asarray(x)
     xp = jnp.asarray(xp)
@@ -648,10 +642,9 @@ def interp_ascending(x, xp, fp, grid=None):
         x_pad = jnp.concatenate([x, jnp.full(1, jnp.inf, x.dtype)])
         # the +-1 correction needs x_pad[est-1] and x_pad[est]: fetch both
         # as ONE (n, 2) row gather of a shift-paired table instead of two
-        # flat scalar gathers (the device trace had those two as 60
-        # ms/batch-8 — row gathers of small-width pairs issue ~3x faster
-        # per row).  Row j holds (x_pad[j-1], x_pad[j]); row 0's left slot
-        # is never used (the est >= 1 mask already guards it).
+        # flat scalar gathers.  Row j holds (x_pad[j-1], x_pad[j]); row
+        # 0's left slot is never used (the est >= 1 mask already guards
+        # it).
         pair_x = jnp.stack(
             [jnp.concatenate([x_pad[:1], x_pad[:m]]), x_pad], axis=1
         )                                               # (m+1, 2)

@@ -82,13 +82,11 @@ class SortedGeom(NamedTuple):
     A plane at height z only crosses faces in a short contiguous window of
     the sorted order (all crossing faces have z_min <= z, and they cluster
     just below the z_min-insertion point).  Per-slice work then runs on a
-    (band,) window instead of all (F,) faces — the decisive optimization
-    for TPU, where the pointer-chasing gathers dominate.
+    (band,) window instead of all (F,) faces.
 
     Vertex coordinates are stored TRANSPOSED as one (9, F) matrix (rows:
     x0 x1 x2 y0 y1 y2 z0 z1 z2): the whole-band crossing math then runs
-    with the band on the TPU lane dimension — a (band, 3) layout pads its
-    3-wide minor dim to the 128-lane register width — and the per-slice
+    with the band as the minor (contiguous) dimension, and the per-slice
     window cut is ONE dynamic slice.  Neighbors stay (F, 3): they are only
     ever gathered at the ~512 compacted crossing faces.
 
@@ -102,18 +100,18 @@ class SortedGeom(NamedTuple):
     #                           (orig_id, 3 neighbor ids) as float32
     #                           VALUES so ONE (k, 13) row gather brings a
     #                           compacted face's whole geometry AND its
-    #                           ids (row gathers ride the fast sublane
-    #                           direction; cost scales with rows fetched,
-    #                           not bytes per row).  Ids must be stored as
-    #                           values, NEVER bitcast bit patterns: the
-    #                           TPU float32 data path flushes denormals to
-    #                           zero and canonicalizes NaNs, so any id
-    #                           < 2^23 bitcast into a float is read back
-    #                           as 0 and -1 (0xFFFFFFFF, a NaN) comes back
-    #                           as the default qNaN pattern (measured on
-    #                           v5e: 2048/2048 ids corrupted).  Integer
-    #                           values are exact in float32 up to 2^24,
-    #                           far above any face count here.
+    #                           ids (one row gather instead of several
+    #                           column gathers).  Ids must be stored as
+    #                           values, NEVER bitcast bit patterns: an
+    #                           accelerator's float32 path may flush
+    #                           denormals to zero and canonicalize NaNs,
+    #                           so any id < 2^23 bitcast into a float can
+    #                           read back as 0, and -1 (0xFFFFFFFF, a NaN)
+    #                           as the default qNaN pattern (this
+    #                           corrupted every id on an earlier
+    #                           accelerator while every CPU test passed).
+    #                           Integer values are exact in float32 up to
+    #                           2^24, far above any face count here.
     neighbors: jnp.ndarray    # (F, 3) sorted-frame neighbor ids, -1 none
     z_min: jnp.ndarray        # (F,) per-slot face z_min (ingest-presorted
     #                           geometry may carry sub-ulp disorder from
@@ -132,7 +130,7 @@ class SortedGeom(NamedTuple):
     #                           ingest-presorted geometry, where the
     #                           conservative z_key window can admit faces
     #                           with z_min >= z that would break the
-    #                           walk kernel's front-packed invariant
+    #                           compaction's front-packed invariant
     cummax_z_max: jnp.ndarray  # (F,) running max of z_max in sorted order
     orig_id: jnp.ndarray      # (F,) original face index per sorted slot
 
@@ -177,10 +175,10 @@ def sorted_geom(verts, faces, neighbors, face_orig=None) -> SortedGeom:
         z_mm = jnp.stack([z_min, z_max], axis=1)
         return SortedGeom(fv9, fvt, nbr, z_min, z_key, z_max, z_mm, cmx,
                           face_orig.astype(jnp.int32))
-    # lexicographic (z_min, face id) sort: plain argsort tie-orders
-    # differently under vmap on TPU (all padding faces tie at +inf, and
-    # equal-z real faces tie too), which would shift window boundaries
-    # between batched and unbatched runs
+    # lexicographic (z_min, face id) sort: a plain argsort may tie-order
+    # differently under vmap (all padding faces tie at +inf, and equal-z
+    # real faces tie too), which would shift window boundaries between
+    # batched and unbatched runs
     idx = jnp.arange(z_min.shape[0], dtype=jnp.int32)
     _, order = jax.lax.sort((z_min, idx), num_keys=2)
     inv = jnp.zeros_like(order).at[order].set(jnp.arange(order.shape[0]))
@@ -208,13 +206,12 @@ def _window_zmax(sg: SortedGeom, z, band: int):
     Windows are contiguous slabs of the z-sorted order cut with ONE
     dynamic slice.
 
-    The walk path's whole-band work is just the crossing test, and with
-    z_min-sorted windows that test needs ONE value per face (see
+    The whole-band work is just the crossing test, and with z_min-sorted
+    windows that test needs the [z_min, z_max] pair per face (see
     `_compact_slice`): every x/y/z coordinate it ever needs lives at the
-    k compacted faces (fetched from `sg.fvt` as one row gather).  Copying
-    1 row instead of 9 (or 3) cuts the dominant per-slice window fetch —
-    under the per-slice vmap the dynamic slice lowers to a lane-direction
-    gather whose cost scales with elements fetched.
+    k compacted faces (fetched from `sg.fvt` as one row gather).  Under
+    the per-slice vmap the dynamic slice lowers to a gather whose cost
+    scales with elements fetched.
     """
     start = jnp.searchsorted(sg.z_key, z)
     lo = jnp.clip(start - band, 0, sg.z_key.shape[0] - band)
@@ -233,10 +230,8 @@ def _window_starts(sg: SortedGeom, zs, band: int):
     per-slice map — same values, S-fold fewer serialized gather rounds.
 
     method='compare_all' turns the S x log2(F) scalar-gather rounds of the
-    default scan into one broadcast compare-reduce (S x F bools on the
-    VPU): measured 29.5 -> ~2 ms for the 600-plane proximal stack at
-    batch 8 — scalar gathers are the scarce resource, vector compares are
-    effectively free at these shapes.
+    default scan into one broadcast compare-reduce (S x F bools).  Which
+    method the H100 prefers is not measured (ROADMAP 3.5).
     """
     starts = jnp.searchsorted(sg.z_key, zs, method="compare_all")
     lo = jnp.clip(starts - band, 0, sg.z_key.shape[0] - band)
@@ -285,10 +280,10 @@ def _crossing_topology(geom: FaceGeom, z):
     succ = jnp.where(crossed[succ], succ, rows)
     # enforce injectivity: when the plane grazes a vertex, the orientation
     # sign of a near-zero-length segment is fp noise and TWO faces can
-    # claim the same successor; pointer doubling (label merge) and the
-    # sequential walk (visited marks) resolve such junctions differently.
-    # Keep only the smallest-index predecessor per target; dead-end the
-    # rest.  Non-degenerate slices (one predecessor per target) unchanged.
+    # claim the same successor; pointer doubling (label merge) and a
+    # sequential walk (visited marks, the numpy oracle) would resolve such
+    # junctions differently.  Keep only the smallest-index predecessor per
+    # target; dead-end the rest.  Non-degenerate slices (one predecessor per target) unchanged.
     linked = crossed & (succ != rows)
     pred_min = (
         jnp.full(F, F, jnp.int32)
@@ -474,7 +469,7 @@ def _slice_one(sg: SortedGeom, lo, start_w, z, interp_num: int,
     over_compact = jnp.asarray(False)
     if compact and compact < F:
         # pack the ~300 crossing faces to the front: the pointer-doubling
-        # gathers are the kernel's hot loop on TPU, and they shrink 4x
+        # gathers then run over k slots instead of the band
         if zmax_w is None:
             zmax_w = jax.lax.dynamic_slice_in_dim(sg.z_mm, lo, band, axis=0)
         (crossed, start, end, succ, orig_id, over_compact,
@@ -524,21 +519,21 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, start, z, k: int):
     fetched (band, 2) [z_min, z_max] window.  (`window position < start`
     is NOT equivalent under ingest-presorted geometry: the conservative
     z_key window can admit faces with z_min >= z, and a position test
-    would compact them as spurious uncrossed slots, breaking the walk
-    kernel's front-packed invariant.)
+    would compact them as spurious uncrossed slots, breaking the
+    front-packed invariant.)
 
     The partition is computed with a cumsum + one scatter (crossed faces
     to slots [0, ncross) in window order; slots >= ncross keep their zero
     init and are masked invalid) — exactly the stable partition
     `argsort((crossed-bit, position))[:k]` restricted to crossed faces,
     without the per-slice O(F log^2 F) bitonic sort, and deterministic
-    under batching (a batched bool argsort(stable=True) tie-orders
-    differently from the unbatched one on TPU).
+    under batching (a batched bool argsort(stable=True) could tie-order
+    differently from the unbatched one).
 
     Everything data-dependent runs on the (k,) compacted set, not the
     band.  The k faces' full geometry arrives as ONE (k, 13) row gather
-    from the face-major `sg.fvt` (sublane-dim row fetches — the fast
-    gather direction); crossing slots and intersection points are then
+    from the face-major `sg.fvt`; crossing slots and intersection points
+    are then
     re-derived per compacted face with the same arithmetic as the band
     formulation, so the results are bit-identical.
     """
@@ -550,10 +545,8 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, start, z, k: int):
     over = ncross > k
     # order[j] = window position of the j-th crossed face = first i with
     # csum_c[i] == j+1.  As a searchsorted with method='compare_all' this
-    # is one broadcast (k, band) compare-reduce on the VPU instead of a
-    # band-sized scatter — the scatter was the prep map's largest single
-    # fusion in the device trace (~23 ms/batch-8 for the proximal stack;
-    # scatters issue ~8x slower than the dense compares replacing them).
+    # is one broadcast (k, band) compare-reduce instead of a band-sized
+    # scatter.
     order = jnp.searchsorted(
         csum_c, jnp.arange(1, k + 1, dtype=csum_c.dtype),
         method="compare_all",
@@ -592,10 +585,9 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, start, z, k: int):
     px = gx + t * (jnp.roll(gx, -1, axis=1) - gx)     # (k, 3)
     py = gy + t * (jnp.roll(gy, -1, axis=1) - gy)
     # slot selection as one-hot masked sums, not per-row gathers: a
-    # px[rows, entry_c] gather costs one scattered row fetch per face
-    # (these four picks were the largest single cost of the prep stage in
-    # the device trace), while select+reduce over the 3-wide slot axis is
-    # pure elementwise work.  Exact: the two masked-out addends are 0.0.
+    # px[rows, entry_c] gather costs one scattered row fetch per face,
+    # while select+reduce over the 3-wide slot axis is pure elementwise
+    # work.  Exact: the two masked-out addends are 0.0.
     e_hot = entry_c[:, None] == jnp.arange(3)[None, :]   # (k, 3)
     x_hot = exit_c[:, None] == jnp.arange(3)[None, :]
     start_c = jnp.stack([
@@ -611,10 +603,8 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, start, z, k: int):
     nbr_exit = jnp.sum(jnp.where(x_hot, gi[:, 1:4], 0), axis=1)
     succ_w = jnp.where(nbr_exit >= 0, nbr_exit - lo, -1)  # window-local
     # compact id of the successor by window-position EQUALITY against the
-    # compacted `order` row: one (k, k) VPU compare-reduce instead of the
-    # band-sized inverse-map build + (k,)-from-(band,) gather (measured
-    # 48 -> 31 ms at the proximal stack's batch shape — scattered lane
-    # gathers are the scarce resource, dense compares are not).  Valid
+    # compacted `order` row: one (k, k) compare-reduce instead of the
+    # band-sized inverse-map build + (k,)-from-(band,) gather.  Valid
     # compact slots hold DISTINCT window positions (dest is injective on
     # crossed faces), so each row matches at most once; -1 / out-of-window
     # / uncrossed / compacted-out successors match nothing and stay -1
@@ -637,9 +627,7 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, start, z, k: int):
     # keep[r] = "r is the first predecessor of its target".  Each row
     # matches at most one column (valid slots hold distinct window
     # positions), so this is any_c(win[r,c] & first_pred[c]==r) — a dense
-    # (k,k) pass instead of the first_pred[succ_idx] lane gather (the
-    # gather was the prep map's largest fusion after the order rewrite:
-    # ~23 ms/batch-8 on the proximal stack)
+    # (k,k) pass instead of the first_pred[succ_idx] gather
     is_first = win & (rows[:, None] == first_pred[None, :])
     keep = jnp.any(is_first, axis=1)
     succ_c = jnp.where(keep, succ_idx, rows)
@@ -647,107 +635,24 @@ def _compact_slice(sg: SortedGeom, zmm_w, lo, start, z, k: int):
             jnp.any(open_edge_c & ~over))
 
 
-def _post_walk(order_s, start_flags, n_s, start_s, end_s, orig_s,
-               interp_num: int):
-    """Finish one slice from the walk output: pick the largest loop, roll to
-    the oracle start face (min original index), arc-length resample.
-
-    Each loop is a CONTIGUOUS run in walk order (the walk emits loops back
-    to back), so per-loop moments never need a per-label scatter: a plain
-    cumsum over walk positions plus the cum row just before each run's
-    start (one (K, 3) row gather with non-decreasing indices) yields every
-    run's moment sums at its end position.  The device trace had the old
-    (K+1, 5) scatter-add as the single most expensive op of the whole
-    pipeline (147 ms/batch-8 for the proximal stack alone — scatter-adds
-    issue ~8x slower than row gathers on v5e).  Run boundaries arrive as
-    the walk kernel's free start marks (chain_walk_marked), so the gather
-    carries only endpoints + original id.
-    """
-    K = order_s.shape[0]
-    posn = jnp.arange(K)
-    valid = posn < n_s
-    f = jnp.where(valid, order_s, 0)
-    # one gather brings both segment endpoints and the original face id of
-    # every walk position (ids exact as f32 values)
-    se = jnp.concatenate(
-        [start_s, end_s, orig_s[:, None].astype(start_s.dtype)], axis=1
-    )[f]                                     # (K, 5), walk order
-    sx, sy, ex, ey = se[:, 0], se[:, 1], se[:, 2], se[:, 3]
-    cr2 = jnp.where(valid, sx * ey - ex * sy, 0.0)
-    is_start = valid & start_flags
-    # a run ends just before the next start, or at the last valid position
-    is_end = valid & (jnp.roll(is_start, -1) | (posn == n_s - 1))
-
-    contrib = jnp.stack([cr2, (sx + ex) * cr2, (sy + ey) * cr2], axis=0)
-    cum = jnp.cumsum(contrib, axis=1)        # (3, K), K on the lane axis
-    sor = jax.lax.cummax(jnp.where(is_start, posn, -1))  # run start per pos
-    # cum rows at (run start - 1); start 0 reads the zero pad row.  sor is
-    # non-decreasing, so this is a monotone row gather (fast direction).
-    cum_pad = jnp.concatenate([jnp.zeros((1, 3), cum.dtype), cum.T], axis=0)
-    run = cum.T - cum_pad[jnp.maximum(sor, 0)]   # (K, 3) run-local prefix
-    area_run = 0.5 * run[:, 0]
-
-    # best loop = max signed area over run ends; all-negative (holes-only)
-    # slices keep the old empty-slot semantics: no loop, empty contour
-    e = jnp.argmax(jnp.where(is_end, area_run, -jnp.inf))
-    has = is_end[e] & (area_run[e] >= 0.0)
-    area_best = jnp.where(has, area_run[e], 0.0)
-    denom = jnp.where(jnp.abs(area_best) > 1e-12, 6.0 * area_best, 1.0)
-    centroid = jnp.where(has, run[e, 1:3] / denom, 0.0)
-    n_best = jnp.where(has, e - sor[e] + 1, 0)
-    p0 = jnp.where(has, sor[e], 0)
-    nb = jnp.maximum(n_best, 1)
-    # oracle start: min original face index within the loop; `se` is
-    # already in walk order, so the loop's span is a (rolled) slice of it
-    big = jnp.iinfo(jnp.int32).max
-    in_loop = posn < n_best
-    # the loop occupies the contiguous walk positions [p0, p0+nb): find the
-    # min-original-id member by masking the walk-order ids directly — no
-    # span gather needed, and argmin position minus p0 is the roll offset
-    in_span = (posn >= p0) & (posn < p0 + n_best)
-    og = jnp.where(in_span, se[:, 4].astype(jnp.int32), big)
-    off = jnp.argmin(og) - p0
-    # the ring ordering p0 + (posn + off) % nb is a ROLL of the contiguous
-    # walk-order span [p0, p0+nb): rows [s0, p0+nb) then [p0, s0).  Cut
-    # both pieces as contiguous dynamic slices of a zero-padded copy and
-    # select elementwise — contiguous copies run at HBM bandwidth and are
-    # free on the roofline, unlike the K-row gather se[ring] they replace.
-    # Re-measured round 3 at the 484 ms build: swapping back to the ring
-    # gather cost ~50 ms/batch-8 — the pieces stay.  Positions >= nb read
-    # padding/garbage in both formulations and are masked by in_loop below.
-    m_off = off % nb                 # in [0, nb)
-    s0 = p0 + m_off                  # roll start, in [p0, p0+nb)
-    cut = nb - m_off                 # first piece length, in [1, nb]
-    zpad = jnp.zeros((K, 2), se.dtype)
-    se3 = jnp.concatenate([zpad, se[:, 0:2], zpad], axis=0)
-    piece_a = jax.lax.dynamic_slice(se3, (K + s0, 0), (K, 2))
-    piece_b = jax.lax.dynamic_slice(se3, (K + p0 - cut, 0), (K, 2))
-    pts = jnp.where((posn < cut)[:, None], piece_a, piece_b)
-    pts = jnp.where(in_loop[:, None], pts, 0.0)
-    contour = _resample(pts, n_best, interp_num, K)
-    return contour, centroid, area_best, 0.5 * jnp.sum(cr2)
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=("interp_num", "max_chain", "chunk", "band", "use_walk",
-                     "group", "slab", "compact_k"),
+    static_argnames=("interp_num", "max_chain", "chunk", "band", "group",
+                     "slab", "compact_k"),
 )
 def slice_stack(
     verts, faces, neighbors, zs, interp_num: int, max_chain: int = 2048,
-    chunk: int = 50, band: int = 6144, use_walk: bool = False,
-    sg: SortedGeom | None = None, group: int = 1, slab: int = 0,
+    chunk: int = 50, band: int = 6144, sg: SortedGeom | None = None,
+    group: int = 1, slab: int = 0,
     compact_k: int = 512,
 ) -> SliceStack:
     """Cross-section contour stack for all planes `zs` of one mesh.
 
     Faces are z-sorted once; each plane's work runs on a (band,)-face
     window (see SortedGeom) — ~7x less gather/elementwise work than the
-    full face set at humerus scale.  With use_walk=True the loop
-    labelling/ordering runs as the sequential Pallas SMEM walk
-    (ops/pallas_chain) instead of pointer doubling — 26% faster on v5e and
-    bit-identical; the default (None) picks the walk on TPU and doubling
-    elsewhere (interpret-mode pallas would crawl on CPU).
+    full face set at humerus scale.  Loops are labelled by pointer
+    doubling and ordered by parallel list ranking over the compacted
+    crossing faces.
 
     `sg` optionally passes a precomputed `sorted_geom(verts, faces,
     neighbors)`: the z-sort (a full-face-set argsort) depends only on the
@@ -759,87 +664,21 @@ def slice_stack(
 
     los, starts, win_over = _window_starts(sg, zs, band)
 
-    if use_walk:
-        from shoulder_tpu.ops import cuda_walk
-
-        k = min(compact_k, band)
-        S = zs.shape[0]
-        F_all = sg.z_max.shape[0]
-        G = group if (group > 1 and S % group == 0 and slab > band
-                      and slab <= F_all) else 1
-
-        if G > 1:
-            # group-slab windows: `group` adjacent planes of the monotone
-            # grid share ONE contiguous slab fetch (see SliceSetConfig).
-            # The slab reaches DOWN to the group's lowest per-plane window
-            # start, so it covers a superset of each plane's band window;
-            # faces in the extra coverage either cross (they would have
-            # been a flagged band overflow — strictly better) or fail the
-            # crossing test.  Truncation at the top (slide > slab - band)
-            # is QC-flagged per plane like a band overflow.
-            W = slab
-            glo = jnp.min(los.reshape(-1, G), axis=1)
-            glo = jnp.minimum(glo, F_all - W)
-            zs_g = zs.reshape(-1, G)
-            st_g = starts.reshape(-1, G)
-
-            def prep_group(args):
-                z_v, start_v, g0 = args
-                slab_z = jax.lax.dynamic_slice_in_dim(sg.z_mm, g0, W, axis=0)
-                below = jnp.maximum(g0 - 1, 0)
-                cmx_below = sg.cummax_z_max[below]
-
-                def one(z, start_w):
-                    (crossed, start, end, succ, orig_c, over,
-                     open_e) = _compact_slice(sg, slab_z, g0, start_w, z, k)
-                    miss_below = (g0 > 0) & (cmx_below >= z)
-                    miss_top = start_w - g0 > W
-                    return (succ.astype(jnp.int32),
-                            crossed.astype(jnp.int32), start, end,
-                            orig_c.astype(jnp.int32),
-                            miss_below | miss_top | over, open_e)
-
-                return jax.vmap(one)(z_v, start_v)
-
-            outs = jax.lax.map(
-                prep_group, (zs_g, st_g, glo),
-                batch_size=max(1, chunk // G),
-            )
-            succ, crossed, start, end, orig, overflow, open_edges = (
-                jax.tree.map(lambda x: x.reshape((S,) + x.shape[2:]), outs)
-            )
-        else:
-            def prep(zlw):
-                z, lo, start_w, overflow = zlw
-                zmm_w = jax.lax.dynamic_slice_in_dim(sg.z_mm, lo, band,
-                                                      axis=0)
-                crossed, start, end, succ, orig_c, over, open_e = (
-                    _compact_slice(sg, zmm_w, lo, start_w, z, k)
-                )
-                return (succ.astype(jnp.int32), crossed.astype(jnp.int32),
-                        start, end, orig_c.astype(jnp.int32),
-                        overflow | over, open_e)
-
-            succ, crossed, start, end, orig, overflow, open_edges = (
-                jax.lax.map(
-                    prep, (zs, los, starts, win_over), batch_size=chunk
-                )
-            )
-        order, nvis, run_starts = cuda_walk.chain_walk_marked(succ, crossed)
-        contours, centroids, areas, total_areas = jax.vmap(
-            functools.partial(_post_walk, interp_num=interp_num)
-        )(order, run_starts, nvis[:, 0], start, end, orig)
-        return SliceStack(contours, centroids, areas, total_areas, zs,
-                          overflow, open_edges)
-
     S = zs.shape[0]
     F_all = sg.z_max.shape[0]
     G = group if (group > 1 and S % group == 0 and slab > band
                   and slab <= F_all) else 1
 
     if G > 1:
-        # same group-slab windows as the walk branch (one slab fetch per
-        # `group` planes); _slice_one consumes the shared slab directly
+        # group-slab windows: `group` adjacent planes of the monotone grid
+        # share ONE contiguous slab fetch (see SliceSetConfig).  The slab
+        # reaches DOWN to the group's lowest per-plane window start, so it
+        # covers a superset of each plane's band window; faces in the
+        # extra coverage either cross (they would have been a flagged band
+        # overflow — strictly better) or fail the crossing test.
+        # Truncation at the top (slide > slab - band) is QC-flagged per
+        # plane like a band overflow.  _slice_one consumes the shared slab
+        # directly.
         W = slab
         glo = jnp.min(los.reshape(-1, G), axis=1)
         glo = jnp.minimum(glo, F_all - W)

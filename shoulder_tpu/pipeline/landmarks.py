@@ -362,8 +362,8 @@ def _anp_image_points(prox: slicing.SliceStack, bg_theta,
         th, r = _to_polar_start(contour, zero)  # uncentered (itr_start)
         # even-theta resample from th[0] to th[-2] over th[:-1]
         # (anatomic_neck.py:43-44).  interp_ascending is jnp.interp minus
-        # the per-sample binary search (which alone was ~345 ms/batch-8 —
-        # the whole polar-image hot spot).  The grid is built explicitly
+        # the per-sample binary search (log2(n) dependent gather rounds per
+        # sample).  The grid is built explicitly
         # as th0 + j*step (ulp-equal to linspace) so its groove-angle roll
         # below is closed-form modular arithmetic instead of a gather.
         step = (th[-2] - th[0]) / (interp - 1)

@@ -448,14 +448,20 @@ def phase_four(seed: int, n_dev: int = 4, n: int = 8,
     _, _, specs, truths = healthy_cohort(n, seed)
     wire = B.stack_wire(specs)
     rf = forest.load_params()
-    wire_dev = pmesh.shard_bones(wire, mesh)
+    wire_dev = jax.block_until_ready(pmesh.shard_bones(wire, mesh))
+    log(f"[four] {n} bones ingested and sharded over {n_dev} devices")
     rf_dev = jax.device_put(rf, NamedSharding(mesh, P()))
     fn = pmesh.sharded_landmark_fn(mesh, cfg=cfg, wire=True)
-    t0 = time.perf_counter()
-    lm = jax.block_until_ready(fn(wire_dev, rf_dev))
-    log(f"[four] sharded program compile+first run "
-        f"{time.perf_counter() - t0:.1f} s")
     log("[four] " + _placement("input verts", wire_dev.verts))
+    # compile and first execution timed apart, each logged as it ends, so
+    # a stall shows which of the two it is
+    t0 = time.perf_counter()
+    compiled = fn.lower(wire_dev, rf_dev).compile()
+    log(f"[four] sharded program compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm = jax.block_until_ready(compiled(wire_dev, rf_dev))
+    log(f"[four] first sharded run {time.perf_counter() - t0:.2f} s")
     log("[four] " + _placement("output neckshaft", lm.neckshaft))
     assert len({s.device for s in lm.neckshaft.addressable_shards}) == n_dev
     assert all(s.data.shape[0] == n // n_dev

@@ -1,13 +1,9 @@
 """End-to-end streamed-cohort benchmark: 64 bones incl. host ingest.
 
 Times `shoulder_tpu.cohort.process_cohort` over the 4 reference fixtures
-replicated x16 (= 64 bones), batch_size 8 (the measured device sweet spot;
-first pass pays compilation; the second (reported) pass is warm but still
-re-ingests every STL from disk — this is the deployment number PERF.md's
-"cohort end-to-end" rows quote.
-
-batch 8-12 runs ~11.6 bones/s on-device, 16+ degrades), on the current
-device.  Run:  python tools/bench_cohort.py [repeats_per_fixture] [batch_size]
+replicated x16 (= 64 bones), batch_size 8; the first pass pays
+compilation; the second (reported) pass is warm but still re-ingests
+every STL from disk.  Runs on the current device (H100: not measured).  Run:  python tools/bench_cohort.py [repeats_per_fixture] [batch_size]
 """
 
 import sys

@@ -2,8 +2,8 @@
 
 Runs the full landmark pipeline over the reference fixtures twice — once
 with segmenter="sphere", once with segmenter="unet" — and prints the
-per-fixture metric deltas.  The round-2 acceptance bar (VERDICT.md item 2):
-all four fixtures within 0.5 deg / 0.5 mm.
+per-fixture metric deltas.  The round-2 acceptance bar (round-2 verdict,
+item 2): all four fixtures within 0.5 deg / 0.5 mm.
 
 Run:  python tools/eval_segmenter.py [stl ...]
 """

@@ -15,8 +15,9 @@ Produces / rewrites:
                                         oracle, both segmenters)
   * PARITY.md accuracy table between the ACCURACY-TABLE markers
 
-Each evaluator runs in its own subprocess (fresh JAX client per program;
-eval_accuracy pins CPU itself, eval_articular uses the default backend).
+Each evaluator runs in its own subprocess, one after the other, on the
+default backend; this parent process never initializes JAX, so only one
+process holds the card at a time.
 """
 
 import json
