@@ -3,7 +3,7 @@
     python chip_smoke.py            # phases 1-4 on one card
     python chip_smoke.py --four     # only the 4-card sharded path
 
-Phases (shoulder_tpu/smoke.py; any failure exits non-zero):
+Phases (smoke_checks.py; any failure exits non-zero):
   1. kernels at real widths against plain references: the 600x512
      proximal slice stack vs the numpy slicer, both find_peaks cores vs
      scipy, the bf16 UNet on the card vs the CPU, the forest vs a numpy
@@ -34,7 +34,7 @@ def main() -> int:
     args = ap.parse_args()
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from shoulder_tpu import smoke
+    import smoke_checks as smoke
 
     dev = smoke.require_gpu()
     cards = smoke.card_lines()

@@ -112,7 +112,8 @@ class PipelineConfig:
     groove_rf_threshold: float = 0.4      # bicipital_groove.py:185
     groove_kde_bins: int = 1024           # bicipital_groove.py:186
     groove_kde_bandwidth: float = 1.0     # sklearn KernelDensity default
-    # candidate local-maxima slots per slice in the dense find_peaks core.
+    # candidate local-maxima slots per slice in the dense find_peaks core
+    # (the default rq core is exact and ignores it; ROADMAP 3.3).
     # The savgol-smoothed radius profile of a humeral cross-section has at
     # most 10 local maxima on the reference fixtures (measured: max 10,
     # mean 6 across all groove slices of all three distinct bones); 64

@@ -124,9 +124,9 @@ def _peaks_core_rq(x, height: float, prominence: float, width: float):
     Previous/next strictly-greater elements by binary descent on a
     range-max table, interval minima/bases by O(1) two-block range-min
     queries with scipy's tie directions, and the width crossing points by
-    threshold descent on the range-min table.  `find_peaks(method="rq")`;
-    on the H100 it ties the dense core (PERF.md), and it is the faster
-    core on a CPU, where the O(n^2) masks blow the cache.
+    threshold descent on the range-min table.  The default core of
+    find_peaks: on the H100 it ties the dense core (PERF.md), and it is
+    the faster core on a CPU, where the O(n^2) masks blow the cache.
     """
     n = x.shape[0]
     levels = max(1, int(np.ceil(np.log2(n))))
@@ -236,9 +236,9 @@ def _peaks_core_dense_cand(x, height: float, prominence: float, width: float,
     returned in CANDIDATE space: (cand, cvalid, ok_c, prom_c, widths_c,
     wh_c), candidates in ascending position order.
 
-    One big fused elementwise program, the default core (on the H100 it
-    measured level with or slightly ahead of the range-query core at the
-    groove stage's shapes, PERF.md).  Only local maxima
+    One big fused elementwise program, `find_peaks(method="dense")` (on
+    the H100 it measured level with the range-query core at the groove
+    stage's shapes, PERF.md).  Only local maxima
     participate as mask rows: they are compacted to candidate slots
     first, so the masks are (C, n) instead of (n, n).  Strict local
     maxima are never adjacent (and the +inf edge pads exclude the ends),
@@ -372,7 +372,7 @@ def _peaks_core_dense(x, height: float, prominence: float, width: float,
     jax.jit, static_argnames=("max_peaks", "method", "cand_cap")
 )
 def find_peaks(x, height: float, prominence: float, width: float,
-               max_peaks: int = 16, method: str = "dense",
+               max_peaks: int = 16, method: str = "rq",
                cand_cap: int | None = None):
     """scipy.signal.find_peaks(height=, prominence=, width=) equivalent.
 
@@ -380,9 +380,11 @@ def find_peaks(x, height: float, prominence: float, width: float,
     prominence, with `valid` marking real peaks:
       idx, prominences, widths, width_heights, valid, n_peaks, overflow.
 
-    Two cores with identical outputs (both scipy-oracle tested): `dense`
-    (O(n^2) fused masks over compacted candidates, the default) and `rq`
-    (O(n log n) sparse-table range queries).
+    Two cores with identical outputs (both scipy-oracle tested): `rq`
+    (O(n log n) sparse-table range queries, the default: exact on any
+    input, with no cap) and `dense` (O(n^2) fused masks over compacted
+    candidates).  On the H100 they tie at the groove stage's shapes
+    (PERF.md).
 
     `cand_cap` (dense core only) bounds the candidate local-maxima slots;
     the default ``n // 2 + 1`` is exact on any input.  A smaller cap cuts

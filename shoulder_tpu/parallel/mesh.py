@@ -3,9 +3,10 @@
 The framework's scaling story (SURVEY.md §2.4): the bone batch is the data-
 parallel axis.  Per-bone work is fully independent, so the batched pipeline
 shards the leading dimension of every BoneTensors leaf over a 1D 'bone'
-mesh; XLA inserts no cross-device collectives on the hot path, and results
-gather to the host on readback — collectives ride ICI only for optional
-cohort statistics (psum/all_gather in cohort_stats).
+mesh and each device runs the one-device program on its shard; the hot
+path holds no cross-device collective, and results gather to the host on
+readback.  Only the optional cohort statistics talk across devices (the
+psum in cohort_stats).
 """
 
 from __future__ import annotations
@@ -44,28 +45,26 @@ def sharded_landmark_fn(
     axis: str = "bone",
     wire: bool = False,
 ):
-    """jit-compiled batched pipeline with bone-sharded in/out specs.
+    """jit-compiled batched pipeline over a bone-sharded batch.
 
-    With `wire=True` the input is a pipeline.batch.WireBones batch (the
-    compact uint16 wire format); decode happens per-shard on-device.
+    Each device runs the one-device batched program on its own shard of
+    bones (`shard_map`), so the partitioner has nothing to decide and the
+    program holds no collective.  With `wire=True` the input is a
+    pipeline.batch.WireBones batch (the compact uint16 wire format);
+    decode happens per-shard on-device.
     """
-    sharding = NamedSharding(mesh, P(axis))
-    replicated = NamedSharding(mesh, P())
 
-    def batched(bones, rf):
+    def local(bones, rf):
         return jax.vmap(
-            lambda b, r: compute_landmarks(
-                decode_wire(b) if wire else b, r,
+            lambda b: compute_landmarks(
+                decode_wire(b) if wire else b, rf,
                 proximal=proximal, cfg=cfg, chunk=chunk),
-            in_axes=(0, None),
-        )(bones, rf)
+        )(bones)
 
-    # a single sharding broadcasts across each argument's whole pytree
-    return jax.jit(
-        batched,
-        in_shardings=(sharding, replicated),
-        out_shardings=sharding,
-    )
+    # a single spec broadcasts across each argument's whole pytree
+    return jax.jit(jax.shard_map(
+        local, mesh=mesh, in_specs=(P(axis), P()), out_specs=P(axis),
+    ))
 
 
 def cohort_stats(landmarks, mesh: Mesh, axis: str = "bone"):
@@ -73,8 +72,8 @@ def cohort_stats(landmarks, mesh: Mesh, axis: str = "bone"):
 
     Each device reduces its local shard of the bone batch to (count, sum,
     sum-of-squares) per metric, then a `jax.lax.psum` over the bone axis
-    combines the partial moments over ICI — one small all-reduce instead
-    of gathering per-bone values to one device.  NaN lanes (isolated
+    combines the partial moments across devices — one small all-reduce
+    instead of gathering per-bone values to one device.  NaN lanes (isolated
     failed bones) are excluded from the moments, so one bad bone cannot
     poison the cohort numbers.  Returns replicated scalars:
     mean/std/n per metric plus the left-side fraction.

@@ -253,7 +253,10 @@ def phase_kernels(seed: int, cfg: PipelineConfig = DEFAULT_CONFIG) -> None:
 
 
 # ------------------------------------------------------------ phase 2
-def _within(truth, side, ns, rv, rad, bounds=HEALTHY_BOUNDS) -> list[str]:
+def within_bounds(truth, side, ns, rv, rad,
+                  bounds=HEALTHY_BOUNDS) -> list[str]:
+    """What misses the generator's truth by a bound or more (empty if
+    nothing does)."""
     bad = []
     if side != truth["side"]:
         bad.append(f"side {side} != {truth['side']}")
@@ -313,13 +316,14 @@ def phase_facade(seed: int, cfg: PipelineConfig = DEFAULT_CONFIG) -> dict:
     assert te.shape == (2, 3) and bg.shape == (2, 3) and anp.shape[0] > 100
     assert np.isfinite(te).all() and np.isfinite(bg).all()
     assert len(head.faces) > 0 and len(shaft.faces) > 0
-    bad = _within(truths[1], side, ns, rv, rad)
+    bad = within_bounds(truths[1], side, ns, rv, rad)
     assert not bad, bad
     return times
 
 
 # ------------------------------------------------------------ phase 3
-def _metrics(lm, i):
+def bone_metrics(lm, i):
+    """(side, neck-shaft, retroversion, radius) of bone `i` of a batch."""
     return ("left" if bool(lm.side_is_left[i]) else "right",
             float(lm.neckshaft[i]), float(lm.retroversion[i]),
             float(lm.radius_curvature[i]))
@@ -351,12 +355,12 @@ def phase_batch(seed: int, n: int = 8, reps: int = 5,
 
     errs = {"ns": [], "rv": [], "rad": []}
     for i, t in enumerate(truths):
-        side, ns, rv, rad = _metrics(a, i)
+        side, ns, rv, rad = bone_metrics(a, i)
         errs["ns"].append(ns - t["neck_shaft_deg"])
         errs["rv"].append(rv - t["retroversion_deg"])
         errs["rad"].append(rad - t["head_radius"])
-        assert not _within(t, side, ns, rv, rad), (i, _within(t, side, ns,
-                                                               rv, rad))
+        bad = within_bounds(t, side, ns, rv, rad)
+        assert not bad, (i, bad)
     errs = {k: np.asarray(v) for k, v in errs.items()}
     log(f"[batch] {n} healthy bones: max |err| neckshaft "
         f"{np.abs(errs['ns']).max():.2f} / retroversion "
@@ -380,8 +384,8 @@ def phase_batch(seed: int, n: int = 8, reps: int = 5,
                                       chunk=150))
     worst = {"deg": 0.0, "mm": 0.0}
     for i in range(k):
-        gs, gns, grv, grad = _metrics(a, i)
-        cs, cns, crv, crad = _metrics(c, i)
+        gs, gns, grv, grad = bone_metrics(a, i)
+        cs, cns, crv, crad = bone_metrics(c, i)
         assert gs == cs, (i, gs, cs)
         worst["deg"] = max(worst["deg"], abs(gns - cns), abs(grv - crv))
         worst["mm"] = max(worst["mm"], abs(grad - crad))
@@ -432,56 +436,22 @@ def _placement(name, arr) -> str:
     return f"{name} shards -> " + ", ".join(parts)
 
 
-def phase_four(seed: int, n_dev: int = 4, n: int = 8,
-               cfg: PipelineConfig = DEFAULT_CONFIG) -> None:
-    """Bone-sharded batch over a 1-D mesh of `n_dev` cards against the
-    one-card batched program, plus the psum cohort statistics."""
-    from jax.sharding import NamedSharding, PartitionSpec as P
+_COLLECTIVES = ("all-reduce", "all-gather", "all-to-all", "reduce-scatter",
+                "collective-permute")
 
-    from shoulder_tpu.models import forest
+
+def _collective_ops(compiled) -> int:
+    """Collective instructions in a compiled program's optimized HLO."""
+    import re
+
+    pat = r"\b(?:" + "|".join(_COLLECTIVES) + r")(?:-start)?\("
+    return len(re.findall(pat, compiled.as_text()))
+
+
+def _check_cohort_stats(lm, sh, mesh, n_dev: int) -> float:
+    """cohort_stats (psum over the mesh) vs numpy moments of the gathered
+    metrics; returns the worst moment difference."""
     from shoulder_tpu.parallel import mesh as pmesh
-    from shoulder_tpu.pipeline import batch as B
-
-    devs = jax.devices()
-    assert len(devs) >= n_dev, f"need {n_dev} devices, have {len(devs)}"
-    mesh = pmesh.bone_mesh(devs[:n_dev])
-    _, _, specs, truths = healthy_cohort(n, seed)
-    wire = B.stack_wire(specs)
-    rf = forest.load_params()
-    wire_dev = jax.block_until_ready(pmesh.shard_bones(wire, mesh))
-    log(f"[four] {n} bones ingested and sharded over {n_dev} devices")
-    rf_dev = jax.device_put(rf, NamedSharding(mesh, P()))
-    fn = pmesh.sharded_landmark_fn(mesh, cfg=cfg, wire=True)
-    log("[four] " + _placement("input verts", wire_dev.verts))
-    # compile and first execution timed apart, each logged as it ends, so
-    # a stall shows which of the two it is
-    t0 = time.perf_counter()
-    compiled = fn.lower(wire_dev, rf_dev).compile()
-    log(f"[four] sharded program compiled in "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    lm = jax.block_until_ready(compiled(wire_dev, rf_dev))
-    log(f"[four] first sharded run {time.perf_counter() - t0:.2f} s")
-    log("[four] " + _placement("output neckshaft", lm.neckshaft))
-    assert len({s.device for s in lm.neckshaft.addressable_shards}) == n_dev
-    assert all(s.data.shape[0] == n // n_dev
-               for s in lm.neckshaft.addressable_shards)
-    sh = B.landmarks_to_numpy(lm)
-
-    one = B.landmarks_to_numpy(B.compute_landmarks_wire(
-        jax.device_put(wire, devs[0]), jax.device_put(rf, devs[0]), cfg=cfg))
-    worst = {"deg": 0.0, "mm": 0.0}
-    for i, t in enumerate(truths):
-        gs, gns, grv, grad = _metrics(sh, i)
-        os_, ons, orv, orad = _metrics(one, i)
-        assert gs == os_ == t["side"], (i, gs, os_, t["side"])
-        worst["deg"] = max(worst["deg"], abs(gns - ons), abs(grv - orv))
-        worst["mm"] = max(worst["mm"], abs(grad - orad))
-    log(f"[four] sharded vs one-card on {n} bones: sides identical and "
-        f"correct, max angle diff {worst['deg']:.3e} deg, max radius diff "
-        f"{worst['mm']:.3e} mm (tol {CROSS_DEVICE_TOL})")
-    assert worst["deg"] <= CROSS_DEVICE_TOL["deg"]
-    assert worst["mm"] <= CROSS_DEVICE_TOL["mm"]
 
     stats = {k: float(v) for k, v in pmesh.cohort_stats(lm, mesh).items()}
     err = 0.0
@@ -493,7 +463,99 @@ def phase_four(seed: int, n_dev: int = 4, n: int = 8,
                   abs(stats[f"std_{name}"] - np.nanstd(x)))
         assert stats[f"n_{name}"] == np.isfinite(x).sum()
     left = float(np.mean(np.asarray(sh.side_is_left)))
-    log(f"[four] cohort_stats (psum over {n_dev} cards) vs numpy moments of "
-        f"the gathered metrics: max |diff| {err:.2e} (tol 1e-3), left "
-        f"fraction {stats['left_fraction']:.3f} vs {left:.3f}")
-    assert err < 1e-3 and abs(stats["left_fraction"] - left) < 1e-6
+    assert abs(stats["left_fraction"] - left) < 1e-6, (stats, left)
+    log(f"[four] cohort_stats (psum over {n_dev} cards) vs numpy moments: "
+        f"max |diff| {err:.2e} (tol 1e-3), left fraction "
+        f"{stats['left_fraction']:.3f} vs {left:.3f}")
+    assert err < 1e-3
+    return err
+
+
+def phase_four(seed: int, n_dev: int = 4, n: int = 8, reps: int = 3,
+               cfg: PipelineConfig = DEFAULT_CONFIG) -> None:
+    """Bone-sharded batch over a 1-D mesh of `n_dev` cards against the
+    one-card batched program, plus the psum cohort statistics.
+
+    Every step logs as it ends, with the seconds since the phase began,
+    so a stall shows where it is.  The collective runs first on toy
+    values: a card-to-card link that cannot start fails in seconds, not
+    after the landmark program's compile."""
+    from types import SimpleNamespace
+
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from shoulder_tpu.models import forest
+    from shoulder_tpu.parallel import mesh as pmesh
+    from shoulder_tpu.pipeline import batch as B
+
+    t_start = time.perf_counter()
+
+    def step(msg: str) -> None:
+        log(f"[four] {time.perf_counter() - t_start:7.1f} s  {msg}")
+
+    devs = jax.devices()
+    assert len(devs) >= n_dev, f"need {n_dev} devices, have {len(devs)}"
+    mesh = pmesh.bone_mesh(devs[:n_dev])
+
+    x = np.arange(n, dtype=np.float32) + 100.0
+    toy = dict(retroversion=x, neckshaft=x, radius_curvature=x,
+               side_is_left=x > 103.5)
+    _check_cohort_stats(SimpleNamespace(**pmesh.shard_bones(toy, mesh)),
+                        SimpleNamespace(**toy), mesh, n_dev)
+    step("toy psum answered on every card")
+
+    _, _, specs, truths = healthy_cohort(n, seed)
+    wire = B.stack_wire(specs)
+    rf = forest.load_params()
+    wire_dev = jax.block_until_ready(pmesh.shard_bones(wire, mesh))
+    rf_dev = jax.device_put(rf, NamedSharding(mesh, P()))
+    step(f"{n} bones drawn and sharded; " + _placement("input verts",
+                                                      wire_dev.verts))
+
+    fn = pmesh.sharded_landmark_fn(mesh, cfg=cfg, wire=True)
+    compiled = fn.lower(wire_dev, rf_dev).compile()
+    n_coll = _collective_ops(compiled)
+    step(f"sharded program compiled; {n_coll} collective instructions")
+    assert n_coll == 0, "the bone-sharded program must not talk across cards"
+    lm = jax.block_until_ready(compiled(wire_dev, rf_dev))
+    step("first sharded run done; " + _placement("output neckshaft",
+                                                lm.neckshaft))
+    assert len({s.device for s in lm.neckshaft.addressable_shards}) == n_dev
+    assert all(s.data.shape[0] == n // n_dev
+               for s in lm.neckshaft.addressable_shards)
+    lat_sh = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(compiled(wire_dev, rf_dev))
+        lat_sh.append(time.perf_counter() - t0)
+    sh = B.landmarks_to_numpy(lm)
+
+    wire_one, rf_one = jax.device_put(wire, devs[0]), jax.device_put(rf,
+                                                                     devs[0])
+    one_dev = jax.block_until_ready(
+        B.compute_landmarks_wire(wire_one, rf_one, cfg=cfg))
+    step("one-card program compiled and run")
+    lat_one = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(B.compute_landmarks_wire(wire_one, rf_one,
+                                                       cfg=cfg))
+        lat_one.append(time.perf_counter() - t0)
+    one = B.landmarks_to_numpy(one_dev)
+    worst = {"deg": 0.0, "mm": 0.0}
+    for i, t in enumerate(truths):
+        gs, gns, grv, grad = bone_metrics(sh, i)
+        os_, ons, orv, orad = bone_metrics(one, i)
+        assert gs == os_ == t["side"], (i, gs, os_, t["side"])
+        worst["deg"] = max(worst["deg"], abs(gns - ons), abs(grv - orv))
+        worst["mm"] = max(worst["mm"], abs(grad - orad))
+    step(f"sharded vs one-card on {n} bones: sides identical and correct, "
+         f"max angle diff {worst['deg']:.3e} deg, max radius diff "
+         f"{worst['mm']:.3e} mm (tol {CROSS_DEVICE_TOL})")
+    assert worst["deg"] <= CROSS_DEVICE_TOL["deg"]
+    assert worst["mm"] <= CROSS_DEVICE_TOL["mm"]
+
+    _check_cohort_stats(lm, sh, mesh, n_dev)
+    step(f"batch-{n} warm p50 of {reps}: {n_dev} cards "
+         f"{np.median(lat_sh) * 1e3:.2f} ms, one card "
+         f"{np.median(lat_one) * 1e3:.2f} ms")

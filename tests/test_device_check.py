@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from shoulder_tpu import smoke
+import smoke_checks as smoke
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -5,13 +5,13 @@ NVIDIA GPU under
 
     SHOULDER_TEST_PLATFORM=gpu python -m pytest -m gpu tests/test_gpu.py
 
-The checks themselves live in shoulder_tpu/smoke.py, which chip_smoke.py
+The checks themselves live in smoke_checks.py, which chip_smoke.py
 runs too.
 """
 
 import pytest
 
-from shoulder_tpu import smoke
+import smoke_checks as smoke
 
 pytestmark = pytest.mark.gpu
 

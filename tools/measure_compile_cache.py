@@ -36,7 +36,7 @@ if {backend!r} == "cpu":
     from shoulder_tpu.utils.platform import force_cpu
     force_cpu()
 import jax
-from shoulder_tpu import smoke
+import smoke_checks as smoke
 from shoulder_tpu.pipeline import batch as B
 if {backend!r} != "cpu":
     smoke.require_gpu()
